@@ -1,6 +1,6 @@
 """ChEES min-ESS/s: centered vs reparam="auto" eight-schools.
 
-VERDICT.md round-4 item 3 "done" criterion: the reference's CENTERED
+The criterion it checks: the reference's CENTERED
 eight-schools (reference samples/NumpyroExamples/eight_schools.py:5-10)
 run through automatic non-centering must match the hand-non-centered
 posterior AND reach >= 10x the centered model's min-ESS/s.
@@ -25,15 +25,15 @@ TIMED = 256
 
 def main():
     from physicsbasedbayesianinference_tpu.chees import (
-        build_fused_jittered_step, build_jittered_hmc_kernel,
-        halton_sequence, run_chees_hmc)
+        build_jittered_hmc_kernel, halton_sequence, run_chees_hmc)
     from physicsbasedbayesianinference_tpu.diagnostics import (
         effective_sample_size)
     from physicsbasedbayesianinference_tpu.models.examples import (
         EIGHT_SCHOOLS_DATA, eight_schools)
     from physicsbasedbayesianinference_tpu.models.potential import (
         make_model_potential)
-    from physicsbasedbayesianinference_tpu.ops.packed import pad_potential
+    from physicsbasedbayesianinference_tpu.ops.potentials import (
+        pad_potential)
 
     results = {}
     for variant, reparam in (("centered", None), ("reparam_auto", "auto")):
@@ -51,10 +51,6 @@ def main():
             init_step_size=0.1, max_steps=max_steps, collect="none",
             kernel="auto")
         state, eps, tau = warm.state, warm.step_size, warm.trajectory_time
-        fused = None
-        if jax.default_backend() == "tpu":
-            fused = build_fused_jittered_step(pot, num_dims=d,
-                                              max_steps=max_steps)
         _, step_fn = build_jittered_hmc_kernel(pot, max_steps=max_steps)
         ess_walkers = 512
 
@@ -62,10 +58,7 @@ def main():
             k, h = xs
             n = jnp.clip(jnp.round(2.0 * h * tau / eps).astype(jnp.int32),
                          1, max_steps)
-            if fused is not None:
-                st, info = fused(k, st, eps, n)
-            else:
-                st, info, _ = step_fn(k, st, eps, n)
+            st, info, _ = step_fn(k, st, eps, n)
             return st, (st.ensemble.q[:ess_walkers, :mp.num_dims],
                         jnp.mean(info.accept_prob), n.astype(jnp.float32))
 

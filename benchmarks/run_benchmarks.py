@@ -1,7 +1,7 @@
 """Benchmark suite: the five BASELINE.json reference configs on this engine.
 
 Each config prints one JSON line {name, wall_s, metrics...}. The headline
-chip metric lives in /root/repo/bench.py; this suite records the broader
+device metric lives in bench.py; this suite records the broader
 capability matrix (accuracy + throughput per config) for BASELINE.md.
 
 Run: python benchmarks/run_benchmarks.py [--cpu] [--only NAME]
@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def bench(name):
@@ -132,10 +133,8 @@ def nbody_tempering(jax, jnp, np):
 @bench("sharded_100k")
 def sharded_100k(jax, jnp, np):
     """BASELINE config 5: 1e5-walker sharded ensemble through the
-    PRODUCT multi-chip surface — parallel.sharded_run_hmc, which on TPU
-    meshes runs the fused Pallas transition per walker shard inside
-    shard_map (r5 default; 0.90x the unpartitioned kernel) and GSPMD on
-    CPU meshes. On 1 chip this is the single-shard datapoint of the
+    multi-device surface — parallel.sharded_run_hmc (GSPMD over the XLA
+    engine). On one device this is the single-shard datapoint of the
     scaling curve."""
     from physicsbasedbayesianinference_tpu.ops import potentials as pot
     from physicsbasedbayesianinference_tpu.parallel import (

@@ -14,7 +14,7 @@
 //    header). The reference accumulates all samples in RAM and returns
 //    them at the end (reference HMC.py:136-145); at 1e5 walkers that
 //    (walkers x dims x iterations x 4) buffer does not fit, so the CLI
-//    streams thinned chunks here while the TPU keeps sampling.
+//    streams thinned chunks here while the device keeps sampling.
 //
 // Build: cc -O3 -shared -fPIC csrc/pbbi_io.cpp -o <lib> (driven by
 // native.py at import time; no build system needed).

@@ -1,8 +1,9 @@
-"""physicsbasedbayesianinference_tpu — TPU-native ensemble-HMC inference.
+"""physicsbasedbayesianinference_tpu — accelerator ensemble-HMC inference.
 
-A from-scratch, TPU-first rebuild of the capabilities of
+A from-scratch JAX rebuild of the capabilities of
 Anton-Le/PhysicsBasedBayesianInference (physics-flavoured ensemble HMC for
-probabilistic models): fused JAX/XLA/Pallas sampling kernels, walker-axis
+probabilistic models): jitted XLA sampling scans, a fused Pallas (Triton)
+HMC transition for the GPU, walker-axis
 sharding over device meshes, a native probabilistic-model DSL, symplectic
 integrators, adaptation, tempering/SMC, and N-body physics targets.
 """

@@ -28,7 +28,8 @@ from typing import List
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from .utils import struct
 
 Array = jax.Array
 
@@ -168,7 +169,7 @@ class CovarianceState:
     already pins the posterior covariance (a single chain needs O(D)
     *correlated* draws just to make it full-rank), which is what makes a
     dense metric practical in the ensemble setting. The [W, D]^T [W, D]
-    cross-moment update is one MXU matmul per transition."""
+    cross-moment update is one matmul per transition."""
 
     mean: Array   # [D]
     m2: Array     # [D, D] centered cross-moment sum

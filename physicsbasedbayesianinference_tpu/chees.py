@@ -7,8 +7,8 @@ references/NotesOnParticleBasedHMC.pdf). ChEES-HMC (Hoffman, Radul &
 Sountsov, AISTATS 2021) is the *ensemble-first* answer — it needs many
 parallel chains to estimate its criterion, which is exactly what this
 framework has, and unlike NUTS it keeps every walker on the same
-trajectory schedule (no per-walker control flow), which is the
-TPU-friendly shape.
+trajectory schedule (no per-walker control flow), which keeps the whole
+ensemble in one batched program.
 
 Mechanics:
 
@@ -37,7 +37,6 @@ from typing import Callable, Optional, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from .adaptation import (
     build_warmup_schedule,
@@ -49,8 +48,9 @@ from .adaptation import (
 )
 from .constants import Constants, NATURAL
 from .ensemble import thermal_momentum_std
-from .hmc import HMCInfo, HMCState, resolve_kernel_choice
+from .hmc import HMCInfo, HMCState, require_xla_kernel
 from .ops.potentials import batched_value_and_grad
+from .utils import struct
 
 Array = jax.Array
 
@@ -185,110 +185,6 @@ def build_jittered_hmc_kernel(
     return init, step
 
 
-def build_fused_jittered_step(
-    potential_fn: Callable[[Array], Array],
-    *,
-    num_dims: int,
-    max_steps: int = 1024,
-    temperature: Union[float, Array] = 1.0,
-    constants: Constants = NATURAL,
-    divergence_threshold: float = 1000.0,
-    emit_proposal: bool = False,
-):
-    """Fused-pallas jittered-HMC transition with a TRACED leapfrog count:
-    the per-transition step count rides in SMEM and bounds an in-kernel
-    ``fori_loop`` (``dynamic_steps=True`` variants of the fused kernels),
-    so ChEES's Halton-jittered trajectory lengths run at packed-kernel
-    speed instead of XLA-scan speed (VERDICT.md round-2 item 6: "ChEES and
-    the fused kernels cannot compose"). Returns ``step(key, state,
-    step_size, num_steps, mass=None) -> (state', HMCInfo)`` or None
-    off-TPU (no interpret-mode lowering for the hardware PRNG).
-
-    ``emit_proposal=True`` switches the step signature to the XLA
-    jittered kernel's ``-> (state', HMCInfo, (q1, p1))`` — the kernels
-    additionally write the pre-accept trajectory endpoint, which is what
-    the ChEES criterion consumes, so *warmup* runs fused too
-    (VERDICT.md round-3 item 4).
-
-    Auto-selects the walker-packed transform when D | 128 and the packed
-    interpreter covers the potential; falls back to the natural-layout
-    generic kernel otherwise.
-    """
-    from .ops.packed import PackedUnsupported
-    from .ops.pallas_kernels import (
-        _use_interpret,
-        interpret_fused_enabled,
-        make_fused_hmc_packed,
-        make_fused_hmc_transition,
-    )
-
-    if _use_interpret() and not interpret_fused_enabled():
-        return None
-    vg = batched_value_and_grad(potential_fn)
-    beta = constants.beta(temperature)
-    generic = make_fused_hmc_transition(
-        vg, num_steps=max_steps, dynamic_steps=True,
-        divergence_threshold=divergence_threshold,
-        emit_proposal=emit_proposal)
-    # The packed transform MUST be built here, eagerly, outside any trace:
-    # its build-time interpreter materialises blockdiag/tile constants as
-    # numpy, which explodes on tracers if deferred into a jitted scan body.
-    packed = None
-    if 128 % num_dims == 0:
-        try:
-            packed = make_fused_hmc_packed(
-                potential_fn, num_dims=num_dims,
-                num_steps=max_steps, dynamic_steps=True,
-                divergence_threshold=divergence_threshold,
-                emit_proposal=emit_proposal)
-        except PackedUnsupported:
-            packed = None
-    if packed is None and not _use_interpret():
-        # the generic kernel would carry every transition: verify its
-        # Mosaic lowering first (see hmc.fused_kernel_lowers), else the
-        # caller falls back to the XLA jittered kernel (interpret mode
-        # executes any traceable jaxpr — no probe needed)
-        from .hmc import fused_kernel_lowers
-        if not fused_kernel_lowers(potential_fn, num_dims):
-            return None
-
-    def step(key: Array, state: HMCState, step_size: Array,
-             num_steps: Array, mass: Optional[Array] = None):
-        ens = state.ensemble
-        if mass is None:
-            mass = ens.mass
-        d = ens.num_dims
-        mass_arr = jnp.asarray(mass)
-        p_std = thermal_momentum_std(mass, temperature, constants)
-        seed = jax.random.randint(
-            key, (), minval=-(2**31), maxval=2**31 - 1, dtype=jnp.int32)
-        trans = None
-        if (d == num_dims and 128 % d == 0
-                and ens.num_walkers % (128 // d) == 0
-                and mass_arr.ndim <= 1):
-            trans = packed
-        if trans is None:
-            trans = generic
-        n = jnp.clip(jnp.asarray(num_steps, jnp.int32), 1, max_steps)
-        out = trans(
-            seed, ens.q, state.potential_energy, state.grad,
-            step_size=step_size, p_std=p_std, inv_mass=1.0 / mass,
-            beta=beta, num_steps=n)
-        q1, u1, g1, accept_prob, accepted, derr = out[:6]
-        new_state = HMCState(
-            ensemble=ens.replace(q=q1, mass=mass),
-            potential_energy=u1, grad=g1)
-        info = HMCInfo(
-            accept_prob=accept_prob, accepted=accepted, energy_error=derr,
-            divergent=jnp.isinf(derr) | (derr > divergence_threshold),
-            potential_energy=u1, step_size=jnp.asarray(step_size))
-        if emit_proposal:
-            return new_state, info, (out[6], out[7])
-        return new_state, info
-
-    return step
-
-
 def chees_gradient(q0: Array, q1: Array, p1: Array, accept_prob: Array,
                    halton: Array, inv_mass) -> Array:
     """The ChEES-HMC d/d(log tau) estimator (Hoffman et al. 2021, eq. 8):
@@ -324,8 +220,7 @@ class ChEESRunResult:
     step_size: Array
     trajectory_time: Array     # adapted tau
     mean_num_steps: Array
-    kernel_used: str = "xla"   # sampling-phase engine ("fused" | "xla")
-    warmup_kernel_used: str = "xla"  # warmup-phase engine (per-phase auto)
+    kernel_used: str = "xla"   # the one engine: the XLA jittered kernel
 
 
 def run_chees_hmc(
@@ -350,44 +245,18 @@ def run_chees_hmc(
     """Warmup (joint dual-averaging step size + ChEES trajectory time) then
     sample with Halton-jittered trajectory lengths ``t = 2 h tau``.
 
-    ``kernel``: "auto"|"fused"|"xla", selected PER PHASE. Sampling with
-    "auto"/"fused" on TPU runs the dynamic-trip-count fused pallas
-    transition. Warmup is phase-aware (VERDICT.md round-4 item 5): on
-    ANALYTIC diag-quadratic targets — detected via the potential's
-    ``diag_quadratic`` attribute — "auto" keeps warmup on the XLA
-    jittered kernel, because XLA fuses the entire warmup body
-    (transition + ChEES criterion + Adam + dual averaging) into one
-    program and a pallas_call is a fusion barrier there (measured
-    0.61-0.93x at 4K-65K walkers, benchmarks/results/chees_warmup_r4*);
-    on real (expensive-force) targets "auto" runs warmup fused too,
-    using the ``emit_proposal`` kernel variant (the ChEES gradient
-    estimator consumes the pre-accept trajectory endpoint, which that
-    variant writes as two extra VMEM outputs). "fused" forces both
-    phases fused; "xla" forces both XLA. Same target distribution
-    either way; TPU-hardware-PRNG streams on the fused paths."""
+    ``kernel``: "auto" or "xla" — both run the XLA jittered kernel, whose
+    trajectory is a ``fori_loop`` with a traced trip count; anything else
+    raises ``ValueError``."""
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
+    require_xla_kernel(kernel, "run_chees_hmc")
     init_q = jnp.asarray(init_q)
     num_dims = init_q.shape[-1]
     dtype = init_q.dtype
     init_fn, step_fn = build_jittered_hmc_kernel(
         potential_fn, max_steps=max_steps, temperature=temperature,
         constants=constants)
-    fused_step = fused_warm_step = None
-    if resolve_kernel_choice(kernel) == "fused":
-        fused_step = build_fused_jittered_step(
-            potential_fn, num_dims=num_dims, max_steps=max_steps,
-            temperature=temperature, constants=constants)
-        warm_fused_wanted = (
-            kernel == "fused"
-            or getattr(potential_fn, "diag_quadratic", None) is None)
-        if (fused_step is not None and num_warmup > 0
-                and warm_fused_wanted):
-            fused_warm_step = build_fused_jittered_step(
-                potential_fn, num_dims=num_dims, max_steps=max_steps,
-                temperature=temperature, constants=constants,
-                emit_proposal=True)
-    kernel_used = "fused" if fused_step is not None else "xla"
     state = init_fn(init_q, mass=mass)
 
     halton_all = jnp.asarray(
@@ -423,10 +292,7 @@ def run_chees_hmc(
                 eps = jnp.exp(da.log_step)
                 n = steps_for(jnp.exp(ch.log_tau), h, eps)
                 q0 = st.ensemble.q
-                if fused_warm_step is not None:
-                    st, info, (q1, p1) = fused_warm_step(k, st, eps, n)
-                else:
-                    st, info, (q1, p1) = step_fn(k, st, eps, n)
+                st, info, (q1, p1) = step_fn(k, st, eps, n)
                 da = da_update(da, jnp.mean(info.accept_prob),
                                target=target_accept)
                 g = chees_gradient(q0, q1, p1, info.accept_prob, h,
@@ -461,10 +327,7 @@ def run_chees_hmc(
             st, mean, m2, n_cnt = carry
             k, h = xs
             n = steps_for(tau, h, step_size)
-            if fused_step is not None:
-                st, info = fused_step(k, st, step_size, n)
-            else:
-                st, info, _ = step_fn(k, st, step_size, n)
+            st, info, _ = step_fn(k, st, step_size, n)
             out = {}
             if collect == "samples":
                 out["q"] = st.ensemble.q
@@ -505,8 +368,4 @@ def run_chees_hmc(
         accept_rate=jnp.mean(scals[0]),
         divergence_rate=jnp.mean(scals[1]),
         step_size=step_size, trajectory_time=tau,
-        mean_num_steps=jnp.mean(scals[2]),
-        kernel_used=kernel_used,
-        warmup_kernel_used=("none" if num_warmup == 0
-                            else "fused" if fused_warm_step is not None
-                            else "xla"))
+        mean_num_steps=jnp.mean(scals[2]))

@@ -33,7 +33,7 @@ class RunConfig:
     sampler: str = "hmc"            # hmc | nuts | smc | pt | chees
     kernel: str = "auto"            # auto | fused | xla — transition engine
     metric: str = "diag"            # diag | dense — hmc mass-matrix form
-    #                                 (auto = fully-fused pallas on TPU)
+    #                                 (auto = xla; fused = Triton, GPU)
     num_walkers: int = 1024
     num_warmup: int = 500
     num_samples: int = 500

@@ -4,7 +4,7 @@ The reference (Anton-Le/PhysicsBasedBayesianInference) hard-codes SI constants
 (``scipy.constants.k`` in ensemble.py:13, ``scipy.constants.G`` in
 potential.py:13) and then works around them in tests by passing
 ``temperature = 1 / k_B`` (reference src/tests/test_HMC.py). SI magnitudes
-(k_B ~ 1e-23) underflow float32, which is the native TPU dtype, so this
+(k_B ~ 1e-23) underflow float32, the accelerator's working dtype, so this
 framework makes the constant system an explicit, swappable value:
 
 * ``NATURAL`` (default): k_B = G = 1 — the right choice for statistical
@@ -12,7 +12,7 @@ framework makes the constant system an explicit, swappable value:
 * ``SI``: full physical constants, for physics-mode simulation in float64 or
   for externally pre-scaled units.
 * ``solar_system_units()``: AU / solar-mass / day units in which gravitational
-  dynamics of planetary systems are O(1) and float32-safe on TPU.
+  dynamics of planetary systems are O(1) and float32-safe.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ exists"), and its only observability is ``print`` statements
   this diagnostic almost for free, the per-walker chains are the "chains";
 * posterior summaries (mean/sd/quantiles) in one pass;
 * ``trace_annotation`` wrapping ``jax.profiler.TraceAnnotation`` so hot
-  sections show up named in TPU profiles (the upgrade path from the
+  sections show up named in device profiles (the upgrade path from the
   reference's cProfile harness, test_integrator_benchmarks_*.py:71-77);
 * a tiny metrics logger: per-iteration scalar dict -> host-side log lines
   at a configurable cadence (the reference prints every 100 iterations,
@@ -112,7 +112,7 @@ def summary(samples: Array, quantiles=(0.05, 0.5, 0.95)) -> dict:
 
 
 def trace_annotation(name: str):
-    """Named profiler region (shows up in TPU traces via
+    """Named profiler region (shows up in device traces via
     ``jax.profiler.trace`` / TensorBoard)."""
     return jax.profiler.TraceAnnotation(name)
 

@@ -1,6 +1,6 @@
 """Ensemble state: the walker population as an immutable, shardable pytree.
 
-TPU-native redesign of the reference ``Ensemble`` class (reference
+Redesign of the reference ``Ensemble`` class (reference
 src/ensemble.py:17-114). Differences, by design:
 
 * **Walker-major layout** ``[num_walkers, num_dims]`` instead of the
@@ -29,9 +29,9 @@ from typing import Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .constants import Constants, NATURAL
+from .utils import struct
 
 Array = jax.Array
 

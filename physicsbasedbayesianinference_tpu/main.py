@@ -31,7 +31,7 @@ import numpy as np
 
 from . import diagnostics
 from .config import RunConfig
-from .constants import NATURAL, SI, Constants
+from .constants import NATURAL, SI
 
 
 def _load_data(path: Optional[str]) -> dict:
@@ -124,37 +124,15 @@ def run(cfg: RunConfig) -> dict:
     key, k_init, k_run = jax.random.split(key, 3)
     init_q = init_fn(k_init, cfg.num_walkers)
 
-    sharded_mesh = None
     if cfg.sharded:
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        from .parallel.mesh import WALKER_AXIS, make_walker_mesh
-        mesh = make_walker_mesh()
+        # every sampler shards the walker axis the same way: place the
+        # positions with a walker sharding and let XLA partition the
+        # scans (GSPMD), which cannot partition the fused pallas_call
+        from .hmc import require_xla_kernel
+        from .parallel.mesh import make_walker_mesh, walker_sharding
+        require_xla_kernel(cfg.kernel, "sharded runs")
         init_q = jax.device_put(
-            init_q, NamedSharding(mesh, P(WALKER_AXIS, None)))
-        if cfg.sampler == "hmc" and cfg.metric == "diag" \
-                and not cfg.checkpoint_dir and cfg.collect != "stream":
-            # the fused multi-chip product path: run_hmc through
-            # shard_map_kernel(build_fused_hmc_kernel(...)) — 0.90x the
-            # unpartitioned fused kernel vs the GSPMD scan's 0.12x
-            # (benchmarks/results/sharded_fused_r5.json)
-            sharded_mesh = mesh
-        elif len(jax.devices()) > 1:
-            # all other sharded paths ride GSPMD, which cannot partition
-            # a pallas_call. A local copy (not cfg mutation: the
-            # caller's config must not silently record a kernel the user
-            # never set) pins "auto" to the partitionable engine; an
-            # EXPLICIT "fused" fails fast rather than reaching the
-            # partitioner with an unpartitionable pallas_call.
-            if cfg.kernel == "fused":
-                raise ValueError(
-                    "kernel='fused' cannot run under GSPMD auto-sharding "
-                    "(pallas_call is not partitionable); use kernel='auto'"
-                    "/'xla' here, or sampler='hmc' whose sharded path "
-                    "runs the fused kernel inside shard_map")
-            if cfg.kernel == "auto":
-                cfg = dataclasses.replace(cfg, kernel="xla")
-                print("# sharded run: kernel=auto -> xla (GSPMD path)",
-                      file=sys.stderr)
+            init_q, walker_sharding(make_walker_mesh(), init_q.ndim))
 
     print(f"# model={cfg.model} sampler={cfg.sampler} "
           f"walkers={cfg.num_walkers} dims={init_q.shape[-1]} "
@@ -195,15 +173,9 @@ def run(cfg: RunConfig) -> dict:
             target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
             temperature=cfg.temperature, constants=constants,
             collect=cfg.collect, thin=cfg.thin)
-        if sharded_mesh is not None:
-            from .parallel.sharded import sharded_run_hmc
-            res = sharded_run_hmc(k_run, potential_fn, init_q,
-                                  mesh=sharded_mesh, kernel=cfg.kernel,
-                                  **kw)
-        else:
-            from .hmc import run_hmc
-            res = run_hmc(k_run, potential_fn, init_q, kernel=cfg.kernel,
-                          metric=cfg.metric, **kw)
+        from .hmc import run_hmc
+        res = run_hmc(k_run, potential_fn, init_q, kernel=cfg.kernel,
+                      metric=cfg.metric, **kw)
         samples = res.samples
         summary.update(
             accept_rate=float(res.accept_rate),
@@ -211,13 +183,14 @@ def run(cfg: RunConfig) -> dict:
             step_size=float(res.step_size),
             num_grad_evals=res.num_grad_evals,
             kernel_used=res.kernel_used,
-            kernel_variant=res.kernel_variant,
             sampling_seconds=round(res.sampling_seconds, 3))
         if res.mean is not None:
             summary["posterior_mean"] = np.asarray(res.mean).tolist()
             summary["posterior_var"] = np.asarray(res.var).tolist()
     elif cfg.sampler == "nuts":
+        from .hmc import require_xla_kernel
         from .nuts import run_nuts
+        require_xla_kernel(cfg.kernel, "nuts")
         res = run_nuts(
             k_run, potential_fn, init_q,
             num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
@@ -230,7 +203,8 @@ def run(cfg: RunConfig) -> dict:
             accept_rate=float(res.accept_rate),
             divergence_rate=float(res.divergence_rate),
             mean_tree_depth=float(res.mean_depth),
-            step_size=float(res.step_size))
+            step_size=float(res.step_size),
+            kernel_used="xla")
     elif cfg.sampler == "chees":
         from .chees import run_chees_hmc
         res = run_chees_hmc(
@@ -247,8 +221,7 @@ def run(cfg: RunConfig) -> dict:
             step_size=float(res.step_size),
             trajectory_time=float(res.trajectory_time),
             mean_num_steps=float(res.mean_num_steps),
-            kernel_used=res.kernel_used,
-            warmup_kernel_used=res.warmup_kernel_used)
+            kernel_used=res.kernel_used)
         if res.mean is not None:
             summary["posterior_mean"] = np.asarray(res.mean).tolist()
             summary["posterior_var"] = np.asarray(res.var).tolist()
@@ -312,8 +285,8 @@ def run(cfg: RunConfig) -> dict:
     return summary
 
 
-# Version of the _checkpointed_run orbax payload structure. v2 = the
-# round-3 layout (added "tau") + the "schema" key itself.
+# Version of the _checkpointed_run payload structure. v2 = the round-3
+# layout (added "tau") + the "schema" key itself.
 CHECKPOINT_SCHEMA = 2
 
 
@@ -324,13 +297,13 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
     chunk interface): warmup once, then sample in chunks of
     ``checkpoint_every`` transitions, checkpointing {sampler state, adapted
     step size (+ ChEES trajectory time), streaming moments, RNG chunk
-    index} through orbax after each chunk. Re-running the same config
+    index} after each chunk. Re-running the same config
     against the same ``checkpoint_dir`` resumes from the latest checkpoint
     — the recovery story SURVEY.md §5 specifies (restart with the same
     topology and continue); the reference persists nothing (HMC.py:136-145
     keeps everything in RAM). Collection is streaming moments (O(D) state
     — checkpoints stay small at any walker count). The HMC path honours
-    ``cfg.kernel`` (fused pallas engine on TPU)."""
+    ``cfg.kernel``."""
     from .checkpoint import CheckpointManager
     from .hmc import resolve_kernel_choice
 
@@ -349,9 +322,8 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
                           run_hmc)
         if resolve_kernel_choice(cfg.kernel) == "fused":
             kern = build_fused_hmc_kernel(
-                potential_fn, num_steps=cfg.num_steps,
-                temperature=cfg.temperature, constants=constants,
-                num_dims=num_dims)
+                potential_fn, num_steps=cfg.num_steps, num_dims=num_dims,
+                temperature=cfg.temperature, constants=constants)
         else:
             kern = build_hmc_kernel(
                 potential_fn, num_steps=cfg.num_steps,
@@ -375,7 +347,9 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
         init_state = kern.init
         xs_all = np.zeros((cfg.num_samples,), np.float32)
     elif cfg.sampler == "nuts":
+        from .hmc import require_xla_kernel
         from .nuts import build_nuts_kernel, run_nuts
+        require_xla_kernel(cfg.kernel, "nuts")
         kern = build_nuts_kernel(
             potential_fn, max_depth=cfg.max_depth,
             temperature=cfg.temperature, constants=constants)
@@ -398,18 +372,12 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
         init_state = kern.init
         xs_all = np.zeros((cfg.num_samples,), np.float32)
     elif cfg.sampler == "chees":
-        from .chees import (build_fused_jittered_step,
-                            build_jittered_hmc_kernel, halton_sequence,
+        from .chees import (build_jittered_hmc_kernel, halton_sequence,
                             run_chees_hmc)
         max_steps = 1024
         init_fn, step_fn = build_jittered_hmc_kernel(
             potential_fn, max_steps=max_steps,
             temperature=cfg.temperature, constants=constants)
-        fused = None
-        if resolve_kernel_choice(cfg.kernel) == "fused":
-            fused = build_fused_jittered_step(
-                potential_fn, num_dims=num_dims, max_steps=max_steps,
-                temperature=cfg.temperature, constants=constants)
 
         def warm(k):
             w = run_chees_hmc(
@@ -424,10 +392,7 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
         def tstep(k, st, eps, tau, h):
             n = jnp.clip(jnp.round(2.0 * h * tau / eps).astype(jnp.int32),
                          1, max_steps)
-            if fused is not None:
-                st, info = fused(k, st, eps, n)
-            else:
-                st, info, _ = step_fn(k, st, eps, n)
+            st, info, _ = step_fn(k, st, eps, n)
             return st, jnp.mean(info.accept_prob)
 
         init_state = init_fn
@@ -441,8 +406,8 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
                                 run_parallel_tempering)
         betas = geometric_ladder(cfg.pt_replicas, cfg.pt_beta_min, dtype)
         num_rep = int(betas.shape[0])
-        pt_trans, _, pt_vg = build_pt_transition(
-            potential_fn, betas=betas, num_dims=num_dims,
+        pt_trans, pt_vg = build_pt_transition(
+            potential_fn, betas=betas,
             num_steps=cfg.num_steps, temperature=cfg.temperature,
             constants=constants, kernel=cfg.kernel, dtype=dtype)
 
@@ -492,8 +457,8 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
         return {
             # bump on any payload-structure change; restore rejects
             # mismatched checkpoints with a clear message instead of an
-            # opaque orbax structure error (ADVICE r3: the round-3 "tau"
-            # key broke round-2 checkpoints silently)
+            # opaque structure error (the round-3 "tau" key broke
+            # round-2 checkpoints silently)
             "schema": jnp.asarray(CHECKPOINT_SCHEMA, jnp.int32),
             "state": canonical(state),
             "step_size": ss_template,
@@ -569,10 +534,9 @@ def _checkpointed_run(cfg: RunConfig, potential_fn, init_q, key,
                    "step_size": payload["step_size"],
                    "tau": payload["tau"],
                    "mean": mean, "m2": m2, "n": n}
-        mgr.save(done, payload, force=True)
+        mgr.save(done, payload)
         saves += 1
         accs.append(float(acc))
-    mgr.close()
 
     var = payload["m2"] / jnp.maximum(payload["n"] - 1.0, 1.0)
     ss = np.asarray(payload["step_size"])
@@ -594,7 +558,7 @@ def _checkpointed_smc_run(cfg: RunConfig, potential_fn, init_q, key,
     grain is the STAGE, not a fixed transition count. The stage body from
     smc.build_smc_machinery is jitted alone and driven host-side; the
     full stage carry (ensemble, weights, beta, evidence accumulator, RNG
-    key, dual-averaging state) orbax-checkpoints after every stage.
+    key, dual-averaging state) is checkpointed after every stage.
     Re-running the same config against the same ``checkpoint_dir``
     resumes at the last completed stage and — because the RNG key rides
     in the carry — reproduces the uninterrupted run's remaining stages
@@ -605,7 +569,7 @@ def _checkpointed_smc_run(cfg: RunConfig, potential_fn, init_q, key,
     init_q = jnp.asarray(init_q)
     dtype = init_q.dtype
     m = build_smc_machinery(
-        potential_fn, init_q.shape[0], dtype, num_dims=init_q.shape[1],
+        potential_fn, init_q.shape[0], dtype,
         num_mutation_steps=3, num_leapfrog_steps=cfg.num_steps,
         init_step_size=cfg.init_step_size, beta0=cfg.smc_beta0,
         max_stages=cfg.smc_max_stages, temperature=cfg.temperature,
@@ -645,10 +609,9 @@ def _checkpointed_smc_run(cfg: RunConfig, potential_fn, init_q, key,
     # beta_max is run()'s fixed 1.0 target
     while float(carry[2]) < 1.0 and int(carry[5]) < cfg.smc_max_stages:
         carry = stage_fn(carry)
-        mgr.save(int(carry[5]), payload_of(carry), force=True)
+        mgr.save(int(carry[5]), payload_of(carry))
         saves += 1
     res = jax.jit(m["finalize"])(carry)
-    mgr.close()
     q = np.asarray(res.q)
     return {
         "log_evidence": float(res.log_evidence),
@@ -728,7 +691,9 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from .utils.compile_cache import enable_compile_cache
     args = _build_parser().parse_args(argv)
+    enable_compile_cache()
     cfg = RunConfig.from_file(args.config) if args.config else RunConfig()
     for f in dataclasses.fields(RunConfig):
         v = getattr(args, f.name, None)

@@ -131,7 +131,7 @@ class reparam(_Handler):
     reference samples/NumpyroExamples/eight_schools.py:5-10) put HMC in a
     Neal's-funnel throat where the step size must track ``tau``;
     the non-centered coordinates decouple the hierarchy and sample well
-    at a fixed step (VERDICT.md round-4 item 3).
+    at a fixed step.
 
     ``config``:
 

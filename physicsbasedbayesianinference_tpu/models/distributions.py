@@ -7,9 +7,9 @@ the standard companions needed for the BASELINE.json model configs
 (logistic regression, hierarchical models).
 
 All log-probabilities are written directly in log space (never
-``log(pdf)``), float32-safe on TPU — the reference requires float64 to
-avoid NaN gradients precisely because it exponentiates then re-logs
-(reference HMC.py:17,84; SURVEY.md §7 risks).
+``log(pdf)``), float32-safe on accelerators — the reference requires
+float64 to avoid NaN gradients precisely because it exponentiates then
+re-logs (reference HMC.py:17,84; SURVEY.md §7 risks).
 
 Each distribution provides:
   ``log_prob(value)`` elementwise over broadcast batch shape;
@@ -510,7 +510,7 @@ class Categorical(Distribution):
 
 class MultivariateNormal(Distribution):
     """MVN with dense covariance (event_dim 1). The quadratic form is a
-    matmul over the event axis — MXU-friendly when batched over walkers."""
+    matmul over the event axis — a matmul when batched over walkers."""
 
     event_dim = 1
     support = tfm.IDENTITY

@@ -29,9 +29,9 @@ def softplus(x: Array) -> Array:
     """``log(1 + exp(x))`` with a LEAN custom derivative.
 
     ``jax.nn.softplus``'s autodiff re-derives sigmoid through logaddexp's
-    inf/NaN guards — ~25 elementwise ops per use inside a fused-kernel
-    gradient loop, which VPU-bounds data-heavy potentials (measured on
-    logreg_32_n256, BASELINE.md r5). The primal here is the same stable
+    inf/NaN guards — ~25 elementwise ops per use inside a gradient loop,
+    which bounds data-heavy potentials such as logreg_32_n256 by
+    elementwise work. The primal here is the same stable
     ``max(x, 0) + log1p(exp(-|x|))``; the tangent is the single
     ``lax.logistic`` primitive, so gradient jaxprs stay 2 ops.
     """
@@ -41,12 +41,8 @@ def softplus(x: Array) -> Array:
 @softplus.defjvp
 def _softplus_jvp(primals, tangents):
     (x,), (t,) = primals, tangents
-    # sigmoid via the EXACT tanh identity: Mosaic's tanh lowering
-    # measured ~11% faster than its logistic on v5e
-    # (benchmarks/results/logreg_sigmoid_sweep_r5.json), and the packed
-    # transform's affine fusion folds the 0.5 scalings into the
-    # adjacent matmul matrices, leaving tanh as the loop's only
-    # elementwise transcendental.
+    # sigmoid via the exact tanh identity: one transcendental per
+    # element, with the 0.5 scalings left for XLA to fuse.
     return softplus(x), (0.5 * jnp.tanh(0.5 * x) + 0.5) * t
 
 

@@ -5,7 +5,7 @@ notes give the U-turn criterion ``(x_new - x) . p < 0`` and dual averaging
 (reference references/NotesOnParticleBasedHMC.pdf, eqs. 5-6), the
 Hoffman-Gelman paper is checked into references/, and the NumPyro examples
 run NUTS as the oracle (samples/NumpyroExamples/CoinTossExample.py:35-44).
-Nothing of it was implemented. This module supplies it, TPU-native:
+Nothing of it was implemented. This module supplies it, ensemble-native:
 
 * **Iterative tree building** (the checkpoint/stack formulation of
   Phan & Pradhan's iterative NUTS): a doubling tree of leapfrog steps with
@@ -33,13 +33,13 @@ from typing import Callable, Optional, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .adaptation import build_warmup_schedule, da_init, da_update, \
     variance_init, variance_update, regularized_mass
 from .constants import Constants, NATURAL
-from .ensemble import EnsembleState, kinetic_energy, thermal_momentum_std
+from .ensemble import EnsembleState, thermal_momentum_std
 from .hmc import HMCState
+from .utils import struct
 
 Array = jax.Array
 
@@ -334,8 +334,8 @@ def build_nuts_kernel(
     :func:`~.hmc.build_hmc_kernel` (init -> HMCState; step(key, state,
     step_size) -> (HMCState, NUTSInfo)).
 
-    ``engine="lockstep"`` (default) is the ENSEMBLE-NATIVE formulation
-    (VERDICT.md round-4 item 4): all walkers advance one leapfrog per
+    ``engine="lockstep"`` (default) is the ENSEMBLE-NATIVE formulation:
+    all walkers advance one leapfrog per
     iteration as a single [W, D]-batched update, and — the key
     structural fact — the iterative algorithm's checkpoint-stack pointer
     and leaf index are deterministic functions of the (shared) leaf
@@ -344,8 +344,8 @@ def build_nuts_kernel(
     they vary elementwise. The per-walker-vmap formulation
     (``engine="vmap"``, the r2-r4 implementation) turned the stack into
     [W, slots, D] gather/scatter per leapfrog and ran ~740x slower than
-    ChEES; lockstep measures ~100x faster at equal statistics (TPU
-    sampler-cost study, benchmarks/results/).
+    ChEES (benchmarks/sampler_cost.py measures the engines side by
+    side).
     """
     beta = constants.beta(temperature)
     value_and_grad = jax.value_and_grad(potential_fn)

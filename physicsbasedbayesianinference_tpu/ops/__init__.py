@@ -1,4 +1,4 @@
-"""Compute ops: potentials, symplectic integrators, Pallas kernels."""
+"""Compute ops: potentials, symplectic integrators, the fused GPU kernel."""
 
 from . import integrators, potentials
 from .integrators import INTEGRATORS, get_integrator
@@ -9,11 +9,13 @@ from .potentials import (
     make_funnel,
     make_gaussian,
     make_harmonic,
+    make_logistic_regression,
     make_nbody_potential,
     make_standard_normal,
     nbody_accelerations,
     nbody_potential_energy,
     no_potential,
+    pad_potential,
 )
 
 __all__ = [
@@ -27,9 +29,11 @@ __all__ = [
     "make_funnel",
     "make_gaussian",
     "make_harmonic",
+    "make_logistic_regression",
     "make_nbody_potential",
     "make_standard_normal",
     "nbody_accelerations",
     "nbody_potential_energy",
     "no_potential",
+    "pad_potential",
 ]

@@ -1,6 +1,6 @@
 """Symplectic integrators as fused, batched `lax.scan` computations.
 
-TPU-native redesign of the reference integrator layer (reference
+Redesign of the reference integrator layer (reference
 src/integrator.py). The reference integrates one walker at a time with a
 Python loop over steps, calling ``jax.grad`` once per walker per step
 (integrator.py:105-123) — every call a separate host->XLA dispatch. Here the
@@ -8,8 +8,8 @@ whole trajectory of the whole ensemble is ONE XLA computation:
 
     lax.scan(step, (q[W,D], p[W,D], grad[W,D], U[W]), length=num_steps)
 
-with the force evaluated batched over all walkers at once (MXU/VPU-friendly,
-single fusion region per step, no host round-trips).
+with the force evaluated batched over all walkers at once (one fusion
+region per step, no host round-trips).
 
 All integrators are *splitting methods*: a palindromic sequence of momentum
 "kicks" (p -= c*dt*grad U) and position "drifts" (q += c*dt*p/m). A generic
@@ -40,7 +40,6 @@ from __future__ import annotations
 from typing import Callable, Sequence, Tuple
 
 import jax
-import jax.numpy as jnp
 
 Array = jax.Array
 # (q[W,D]) -> (U[W], gradU[W,D])
@@ -217,9 +216,3 @@ def get_integrator(name: str):
             f"Invalid integration method {name!r}; "
             f"available: {sorted(INTEGRATORS)}") from None
 
-
-# Pallas fused-trajectory integrator (whole trajectory in VMEM per walker
-# block; ops/pallas_kernels.py). Falls back to interpret mode off-TPU.
-from .pallas_kernels import pallas_leapfrog  # noqa: E402
-
-INTEGRATORS["pallas_leapfrog"] = pallas_leapfrog

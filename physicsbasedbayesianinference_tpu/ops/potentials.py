@@ -1,6 +1,6 @@
 """Analytic target potentials and N-body energies/forces.
 
-TPU-native redesign of the reference potential library (reference
+Redesign of the reference potential library (reference
 src/potential.py). Every potential here is a *pure function of a single
 walker's position vector* ``q: [D] -> scalar``; the sampler batches it with
 ``vmap`` and differentiates it with ``value_and_grad`` — there are no
@@ -12,8 +12,8 @@ them exactly; a vmapped central-difference oracle is kept as
 :func:`numerical_grad`/:func:`numerical_force` for testing).
 
 Potentials that have cheap closed-form gradients also expose them via the
-``analytic_grad`` attribute so the Pallas fused-trajectory kernel can inline
-the force evaluation in VMEM without autodiff.
+``analytic_grad`` attribute, so the samplers (and the fused GPU kernel,
+ops/fused_hmc.py) evaluate the force without autodiff.
 
 Sign conventions (fixing a reference inconsistency): gravitational potential
 energy is **negative**, ``U = -G m_i m_j / r`` — the reference returns
@@ -37,12 +37,9 @@ PotentialFn = Callable[[Array], Array]
 
 
 def _attach(fn: PotentialFn, *, analytic_grad: Optional[Callable] = None,
-            name: str = "", diag_quadratic=None) -> PotentialFn:
+            name: str = "") -> PotentialFn:
     fn.analytic_grad = analytic_grad  # type: ignore[attr-defined]
     fn.name = name or fn.__name__  # type: ignore[attr-defined]
-    # (k_diag, mean) for U = 0.5 sum k (q - mean)^2 — enables the packed
-    # fused TPU kernel (ops/pallas_kernels.make_fused_hmc_diag_quadratic)
-    fn.diag_quadratic = diag_quadratic  # type: ignore[attr-defined]
     return fn
 
 
@@ -71,8 +68,7 @@ def make_harmonic(spring_consts) -> PotentialFn:
     def grad(q):
         return k.astype(q.dtype) * q
 
-    return _attach(potential, analytic_grad=grad, name="harmonic",
-                   diag_quadratic=(k, 0.0))
+    return _attach(potential, analytic_grad=grad, name="harmonic")
 
 
 def make_standard_normal(num_dims: int) -> PotentialFn:
@@ -90,8 +86,7 @@ def make_standard_normal(num_dims: int) -> PotentialFn:
         return q
 
     return _attach(potential, analytic_grad=grad,
-                   name=f"std_normal_{num_dims}d",
-                   diag_quadratic=(1.0, 0.0))
+                   name=f"std_normal_{num_dims}d")
 
 
 def make_gaussian(mean: Array, cov: Optional[Array] = None,
@@ -99,8 +94,8 @@ def make_gaussian(mean: Array, cov: Optional[Array] = None,
     """Multivariate Gaussian target: U(q) = 0.5 (q-mu)^T P (q-mu).
 
     Supply either ``cov`` (inverted via Cholesky once, at trace time) or
-    ``precision`` directly. The quadratic form is a matmul — MXU-friendly
-    when batched over walkers.
+    ``precision`` directly. The quadratic form is a matmul — tensor-core
+    work when batched over walkers.
     """
     mean = jnp.asarray(mean)
     if precision is None:
@@ -121,12 +116,7 @@ def make_gaussian(mean: Array, cov: Optional[Array] = None,
     def grad(q):
         return (q - mean.astype(q.dtype)) @ precision.astype(q.dtype)
 
-    diag = None
-    off_diag = precision - jnp.diag(jnp.diagonal(precision))
-    if bool(jnp.all(off_diag == 0.0)):
-        diag = (jnp.diagonal(precision), mean)
-    return _attach(potential, analytic_grad=grad, name="gaussian",
-                   diag_quadratic=diag)
+    return _attach(potential, analytic_grad=grad, name="gaussian")
 
 
 def make_banana(a: float = 1.0, b: float = 100.0) -> PotentialFn:
@@ -147,6 +137,36 @@ def make_banana(a: float = 1.0, b: float = 100.0) -> PotentialFn:
         return jnp.stack([d0, d1], axis=-1)
 
     return _attach(potential, analytic_grad=grad, name="banana")
+
+
+def make_logistic_regression(x: Array, labels: Array) -> PotentialFn:
+    """Bayesian logistic regression in closed form: ``q = (w, b)`` with
+    ``w ~ N(0, 1)^P``, ``b ~ N(0, 1)``, ``labels ~ Bernoulli(logits = x @ w
+    + b)`` — the posterior of ``models.examples.logistic_regression`` up to
+    an additive constant, with ``q`` flattened in the same (w, b) order.
+
+    The intercept rides as a column of ones appended to ``x``, so the
+    potential is one ``[..., P+1] x [P+1, N]`` product and elementwise work
+    with no slicing — a form the fused GPU kernel (ops/fused_hmc.py) can
+    lower when ``P + 1`` and ``N`` are powers of two.
+    """
+    x = jnp.asarray(x)
+    x_aug = jnp.concatenate([x, jnp.ones((x.shape[0], 1), x.dtype)], axis=1)
+    y = jnp.asarray(labels, x.dtype)
+
+    def potential(q):
+        z = q @ x_aug.T.astype(q.dtype)
+        softplus = jnp.maximum(z, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(z)))
+        return 0.5 * jnp.sum(q * q, axis=-1) + jnp.sum(
+            softplus - y.astype(q.dtype) * z, axis=-1)
+
+    def grad(q):
+        z = q @ x_aug.T.astype(q.dtype)
+        resid = 1.0 / (1.0 + jnp.exp(-z)) - y.astype(q.dtype)
+        return q + resid @ x_aug.astype(q.dtype)
+
+    return _attach(potential, analytic_grad=grad,
+                   name=f"logreg_{x_aug.shape[1]}_n{x.shape[0]}")
 
 
 def make_funnel(num_dims: int = 10, sigma: float = 3.0) -> PotentialFn:
@@ -331,6 +351,42 @@ def numerical_force(potential_fn: PotentialFn,
     potential)."""
     g = numerical_grad(potential_fn, eps)
     return lambda q: -g(q)
+
+
+def pad_potential(potential_fn: PotentialFn, num_dims: int,
+                  padded_dims: Optional[int] = None) -> PotentialFn:
+    """Embed a D-dim target in R^{D'} (default D' = the next power of two)
+    by appending independent standard-normal auxiliary coordinates:
+    U'(q') = U(q'[:D]) + 0.5 |q'[D:]|^2. The first-D marginals of the
+    padded target are exactly the original posterior; samplers report
+    q'[..., :D].
+
+    The returned potential carries ``orig_dims``/``padded_dims`` attributes
+    and a composed ``analytic_grad`` when the base potential has one.
+    """
+    if padded_dims is None:
+        padded_dims = 1 << max(num_dims - 1, 0).bit_length()
+    if padded_dims < num_dims:
+        raise ValueError("padded_dims < num_dims")
+    if padded_dims == num_dims:
+        return potential_fn
+    d, dp = num_dims, padded_dims
+
+    def padded(q):
+        extra = q[..., d:]
+        return potential_fn(q[..., :d]) + 0.5 * jnp.sum(
+            extra * extra, axis=-1)
+
+    ag = getattr(potential_fn, "analytic_grad", None)
+    grad = None
+    if ag is not None:
+        def grad(q):
+            return jnp.concatenate([ag(q[..., :d]), q[..., d:]], axis=-1)
+    _attach(padded, analytic_grad=grad,
+            name=getattr(potential_fn, "name", "potential") + f"_pad{dp}")
+    padded.orig_dims = d  # type: ignore[attr-defined]
+    padded.padded_dims = dp  # type: ignore[attr-defined]
+    return padded
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
-"""Walker-axis parallelism over TPU device meshes.
+"""Walker-axis parallelism over device meshes.
 
 The reference planned multi-node parallelism via MPI (MVAPICH2 + mpi4py +
 mpi4jax, reference manuals/SetUp.md:82-200) but never implemented it
-(SURVEY.md §2 parallelism audit). The TPU-native replacement is: one
-``walkers`` mesh axis spanning all chips (ICI within a slice, DCN across
-slices), ensemble state sharded ``P('walkers', None)``, and ensemble
-statistics reduced with XLA collectives (``psum``/``pmean``) — no
+(SURVEY.md §2 parallelism audit). The replacement is: one ``walkers`` mesh
+axis spanning all devices (NVLink between the cards of a host, the
+network across hosts), ensemble state sharded ``P('walkers', None)``, and
+ensemble statistics reduced with XLA collectives (``psum``/``pmean``) — no
 user-visible communication backend at all.
 """
 

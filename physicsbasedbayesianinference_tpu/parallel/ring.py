@@ -3,18 +3,17 @@
 The reference computes gravitational interactions body-by-body in Python
 (reference potential.py:30-53 ``getAccelNBody``; MiscFunctions.py:51-78
 ``Accel``) and planned to distribute work with MPI point-to-point calls
-(reference manuals/SetUp.md:82-200). The TPU-native realisation is the
+(reference manuals/SetUp.md:82-200). The realisation here is the
 blockwise-ring pattern (SURVEY.md §5 "long-context" analog): shard bodies
 over a 1-D mesh axis, keep each device's block resident, and rotate
 *partner* blocks around the ring with ``jax.lax.ppermute`` — the same
 communication schedule as ring attention, applied to gravitational pairs.
 
 Per ring step each device computes an ``[n_local, n_local]`` pairwise tile
-(VPU work that XLA fuses; on TPU the per-tile math is identical to the
-single-device Pallas kernel's inner block). After ``k = mesh size`` steps
-every device has accumulated forces from all N bodies while only ever
-holding ``2 N/k`` positions, so memory per device is O(N/k) and the
-all-pairs traffic rides ICI neighbor links instead of all-to-all.
+(elementwise work that XLA fuses). After ``k = mesh size`` steps every
+device has accumulated forces from all N bodies while only ever holding
+``2 N/k`` positions, so memory per device is O(N/k) and the all-pairs
+traffic is k-1 neighbour hops instead of an all-to-all.
 
 Everything here is shape-static and jit-safe; mesh size 1 degenerates to
 the dense computation.
@@ -27,7 +26,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..constants import Constants, NATURAL
 
@@ -122,7 +121,7 @@ def _ring_sweep(x_blk, m_blk, *, axis_name, mesh_size, soft2, want_pot):
                 x_blk, m_blk, xj, mj, soft2=soft2, mask_self=(s == 0))
         if s + 1 < mesh_size:
             # rotate partner block one hop around the ring; XLA overlaps
-            # this ICI transfer with the next tile's compute
+            # this transfer with the next tile's compute
             xj = jax.lax.ppermute(xj, axis_name, perm)
             mj = jax.lax.ppermute(mj, axis_name, perm)
     return acc, pot

@@ -1,6 +1,6 @@
 """Direct physical simulation: N-body systems, integrator zoo, trajectory
 drivers, conserved-quantity oracles (the reference's samples/NBody layer
-and solar-system tests, rebuilt as scan-compiled TPU programs)."""
+and solar-system tests, rebuilt as scan-compiled XLA programs)."""
 
 from . import integrators, nbody
 from . import simulate as simulate_lib

@@ -1,4 +1,4 @@
-"""The N-body integrator zoo, TPU-native.
+"""The N-body integrator zoo, as jitted scans.
 
 Functional re-creation of the reference's legacy integrator collection
 (reference samples/NBody/Integrators.py:15-407 and Integrators2B.py:12-201):
@@ -23,10 +23,9 @@ a leading batch axis for ensembles of systems.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable
 
 import jax
-import jax.numpy as jnp
 
 Array = jax.Array
 AccelFn = Callable[[Array], Array]           # x:[N,D] -> a:[N,D]

@@ -1,6 +1,6 @@
 """N-body system state, conserved quantities, and initial-condition IO.
 
-TPU-native redesign of the reference's N-body support layer (reference
+Redesign of the reference's N-body support layer (reference
 samples/NBody/MiscFunctions.py and the direct-simulation path of
 src/potential.py / src/tests/test_integrator_solar_system.py):
 
@@ -16,17 +16,16 @@ src/potential.py / src/tests/test_integrator_solar_system.py):
   data files samples/NBody/pl{2,3,100,1k}.txt) is parsed host-side;
 * the Earth-Sun-Moon system of the reference's orbit test
   (test_integrator_solar_system.py:28-40) ships as a preset, in SI units
-  (float64, CPU physics mode) and AU/M_sun/day units (float32-safe on TPU).
+  (float64, CPU physics mode) and AU/M_sun/day units (float32-safe).
 """
 
 from __future__ import annotations
 
 import io
-from typing import Optional, Union
+from typing import Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..constants import (
     AU_IN_METERS,
@@ -38,6 +37,7 @@ from ..constants import (
     solar_system_units,
 )
 from ..ops.potentials import nbody_accelerations, nbody_potential_energy
+from ..utils import struct
 
 Array = jax.Array
 
@@ -222,7 +222,8 @@ def solar_system(units: str = "astro") -> tuple[NBodySystem, Constants]:
 
     ``units="si"``: metres/kg/seconds, float64 (SI gravitational energies
     overflow float32). ``units="astro"``: AU / M_sun / day, float32-safe —
-    the scaling TPUs want (SURVEY.md §7 risks: normalise units internally).
+    the scaling float32 accelerators want (SURVEY.md §7 risks: normalise
+    units internally).
     Returns ``(system, constants)``.
     """
     mass_kg = [_EARTH_MASS_KG, _SUN_MASS_KG, _MOON_MASS_KG]

@@ -1,6 +1,6 @@
 """Trajectory simulation drivers: fixed-step scans + adaptive timestepping.
 
-TPU-native replacement for the reference's per-step Python time loops
+Jitted replacement for the reference's per-step Python time loops
 (reference samples/NBody/Integrators.py — every IntegrateXX function is
 ``for t in range(Ntot):`` around numpy math; NBody.py:52-66 wraps them with
 wall-clock prints). Here the whole trajectory is ONE compiled program:
@@ -23,7 +23,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..constants import Constants, NATURAL
 from . import integrators as phyint
@@ -34,6 +33,7 @@ from .nbody import (
     total_angular_momentum,
     total_energy,
 )
+from ..utils import struct
 
 Array = jax.Array
 

@@ -4,7 +4,7 @@ The capability the reference planned but never built (reference
 references/PhysicsBasedHMC_SoHPC2022_WeekPlan.md:39 "Further development of
 SMC"; the commented-out Boltzmann ensemble weights, ensemble.py:52-61; the
 microcanonical weight formula e^{-beta H_i}/sum_j e^{-beta H_j} in
-references/NotesOnParticleBasedHMC.pdf eq. 1), designed TPU-first:
+references/NotesOnParticleBasedHMC.pdf eq. 1), designed ensemble-first:
 
 * every stage is a fused jittable pass over the whole ensemble: reweight
   (log-space, no underflow) -> adaptive next-temperature by on-device
@@ -33,16 +33,14 @@ from typing import Callable, Optional, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.sharding import Mesh
 
 from .adaptation import da_init, da_update
 from .constants import Constants, NATURAL
-from .ensemble import EnsembleState
-from .hmc import (HMCState, build_fused_hmc_kernel, build_hmc_kernel,
-                  resolve_kernel_choice)
+from .hmc import build_hmc_kernel, require_xla_kernel
 from .ops.potentials import batched_value_and_grad
 from .parallel.mesh import WALKER_AXIS
+from .utils import struct
 
 Array = jax.Array
 
@@ -207,13 +205,8 @@ def run_smc(
     per-device memory O(W/K) and K-1 neighbor ppermute hops instead of the
     dense all-to-all gather (requires ``resampler="systematic"``).
 
-    ``kernel``: "auto"|"fused"|"xla" selects the mutation engine. On TPU
-    "auto" runs every mutation sweep through the fully-fused pallas HMC
-    transition with the stage temperature as a *traced* potential prefactor
-    (``potential_scale`` — forces scale * grad U, Hamiltonian scale * U):
-    one compiled kernel serves the whole annealing ladder at bench-headline
-    throughput (VERDICT.md round-2 item 1: SMC mutation was locked to the
-    XLA kernel). Off-TPU this degrades to the XLA scan kernel.
+    ``kernel``: "auto" or "xla" — the mutation moves run the XLA HMC
+    kernel; anything else raises ``ValueError``.
     """
     init_q = jnp.asarray(init_q)
     m = build_smc_machinery(
@@ -226,8 +219,7 @@ def run_smc(
         max_stages=max_stages, resampler=resampler,
         temperature=temperature, constants=constants,
         mutation_target_accept=mutation_target_accept, mesh=mesh,
-        mesh_axis=mesh_axis, kernel=kernel,
-        num_dims=init_q.shape[1])
+        mesh_axis=mesh_axis, kernel=kernel)
 
     @jax.jit
     def smc(key, init_q):
@@ -243,7 +235,6 @@ def build_smc_machinery(
     num_walkers: int,
     dtype,
     *,
-    num_dims: int,
     num_mutation_steps: int = 3,
     num_leapfrog_steps: int = 10,
     init_step_size: float = 0.5,
@@ -268,7 +259,7 @@ def build_smc_machinery(
     :func:`run_smc` composes them into one jitted ``while_loop`` (the
     fast path); the CLI's fault-tolerant SMC driver
     (main._checkpointed_smc_run) instead jits ``body`` alone and drives
-    the stage loop host-side, orbax-checkpointing the carry after every
+    the stage loop host-side, checkpointing the carry after every
     stage — the annealing ladder is sequential and stages are the
     natural recovery grain. Both paths execute the identical stage
     program, so a resumed run reproduces the uninterrupted one.
@@ -292,26 +283,10 @@ def build_smc_machinery(
             return jnp.take(q, idx, axis=0)
 
     base_beta = 1.0 / (constants.k_B * temperature)
-    choice = resolve_kernel_choice(kernel)
-    fused_kernel = None
-    if choice == "fused":
-        fused_kernel = build_fused_hmc_kernel(
-            potential_fn, num_steps=num_leapfrog_steps,
-            temperature=temperature, constants=constants,
-            num_dims=num_dims)
-        from .hmc import fused_kernel_lowers
-        if (fused_kernel.variant_for is not None
-                and fused_kernel.variant_for(num_walkers, num_dims, 1)
-                == "generic"
-                and not fused_kernel_lowers(potential_fn, num_dims)):
-            # e.g. the N-body ensemble potential: its rank-3 reshape has
-            # no Mosaic lowering — degrade to the XLA mutation engine
-            choice = "xla"
-            fused_kernel = None
+    require_xla_kernel(kernel, "run_smc")
 
     # tempered kernel: scale the potential by beta (relative to base).
-    # beta enters only as a traced multiplier (a closure const for the XLA
-    # path, the potential_scale SMEM scalar for the fused path), so the
+    # beta enters only as a traced multiplier (a closure const), so the
     # while_loop body compiles once for all stages.
     def tempered_step(key, q, beta, step_size):
         """One HMC transition targeting exp(-beta * U / (k_B T))."""
@@ -323,19 +298,6 @@ def build_smc_machinery(
         state = k.init(q)
         new_state, info = k.step(key, state, step_size)
         return new_state.ensemble.q, jnp.mean(info.accept_prob)
-
-    def fused_tempered_step(key, q, u, g, beta, step_size):
-        """Fused-pallas tempered transition; (u, g) are UNSCALED caches."""
-        st = HMCState(
-            ensemble=EnsembleState(
-                q=q, p=jnp.zeros_like(q),
-                mass=jnp.asarray(1.0, q.dtype),
-                log_weight=jnp.zeros(q.shape[:1], q.dtype)),
-            potential_energy=u, grad=g)
-        st, info = fused_kernel.step(key, st, step_size,
-                                     potential_scale=beta)
-        return (st.ensemble.q, st.potential_energy, st.grad,
-                jnp.mean(info.accept_prob))
 
     def cond(carry):
         (_, _, beta, _, _, stage, *_) = carry
@@ -365,37 +327,19 @@ def build_smc_machinery(
 
         # mutation: K tempered-HMC sweeps, each feeding its
         # ensemble-mean acceptance into the dual-averaging state
-        # (per-stage adaptation, VERDICT.md round-1 item 7)
-        if choice == "fused":
-            # refresh the (u, g) caches after the resample-select,
-            # then keep them current through the fused transitions —
-            # the stage-end reweighting u comes for free
-            u_m, g_m = vg(q)
+        # (per-stage adaptation)
+        def mut(carry, k):
+            q, da, _ = carry
+            step_size = jnp.exp(da.log_step).astype(dtype)
+            q, acc = tempered_step(k, q, new_beta, step_size)
+            da = da_update(da, acc, target=mutation_target_accept)
+            return (q, da, acc), None
 
-            def mut(carry, k):
-                q, u, g, da, _ = carry
-                step_size = jnp.exp(da.log_step).astype(dtype)
-                q, u, g, acc = fused_tempered_step(
-                    k, q, u, g, new_beta, step_size)
-                da = da_update(da, acc, target=mutation_target_accept)
-                return (q, u, g, da, acc), None
-
-            (q, u, _, da, acc), _ = jax.lax.scan(
-                mut, (q, u_m, g_m, da, jnp.asarray(0.0, dtype)),
-                jax.random.split(k_mut, num_mutation_steps))
-        else:
-            def mut(carry, k):
-                q, da, _ = carry
-                step_size = jnp.exp(da.log_step).astype(dtype)
-                q, acc = tempered_step(k, q, new_beta, step_size)
-                da = da_update(da, acc, target=mutation_target_accept)
-                return (q, da, acc), None
-
-            (q, da, acc), _ = jax.lax.scan(
-                mut, (q, da, jnp.asarray(0.0, dtype)),
-                jax.random.split(k_mut, num_mutation_steps))
-            # unscaled target potential for the next reweighting step
-            u, _ = vg(q)
+        (q, da, acc), _ = jax.lax.scan(
+            mut, (q, da, jnp.asarray(0.0, dtype)),
+            jax.random.split(k_mut, num_mutation_steps))
+        # unscaled target potential for the next reweighting step
+        u, _ = vg(q)
 
         betas = betas.at[stage + 1].set(new_beta)
         ess_h = ess_h.at[stage].set(ess)

@@ -15,7 +15,7 @@ replicas periodically exchange configurations with the Metropolis rule
 so cold chains inherit the hot chains' mode-hopping. This is the standard
 replica-exchange construction (Swendsen & Wang 1986; Earl & Deem 2005).
 
-TPU-native design:
+Design:
 
 * the replica axis is a ``vmap`` — one compiled transition advances all
   R x W walkers; trajectories for every replica run in the same fused
@@ -41,7 +41,7 @@ import numpy as np
 from .adaptation import da_init, da_update
 from .constants import Constants, NATURAL
 from .ensemble import thermal_momentum_std
-from .hmc import resolve_kernel_choice
+from .hmc import require_xla_kernel
 from .ops.integrators import get_integrator
 from .ops.potentials import batched_value_and_grad
 
@@ -80,7 +80,6 @@ def build_pt_transition(
     potential_fn: Callable[[Array], Array],
     *,
     betas: Array,
-    num_dims: int,
     num_steps: int = 10,
     integrator: str = "leapfrog",
     mass: Union[float, Array] = 1.0,
@@ -98,16 +97,12 @@ def build_pt_transition(
 
     with ``i`` the transition counter selecting the even/odd swap phase.
 
-    ``kernel``: "auto"|"fused"|"xla". On TPU "auto" runs each replica's
-    HMC sweep through the fully-fused pallas transition (per-replica
-    ``step_size``/``beta``/``p_std`` ride the kernel's SMEM scalars, so
-    the R replica calls share ONE compiled kernel — VERDICT.md round-3
-    item 5: PT was locked to the XLA integrator path). Off-TPU or for
-    non-leapfrog integrators this degrades to the XLA scan exactly like
-    :func:`..hmc.run_hmc`.
+    ``kernel``: "auto" or "xla" (the replica sweeps run the XLA scan
+    integrator); anything else raises ``ValueError``.
 
-    Returns ``(transition, kernel_used, vg)``.
+    Returns ``(transition, vg)``.
     """
+    require_xla_kernel(kernel, "parallel tempering")
     betas = jnp.asarray(betas, dtype)
     num_replicas = betas.shape[0]
     integ = get_integrator(integrator)
@@ -120,28 +115,6 @@ def build_pt_transition(
     partner_even = jnp.asarray(even_np, jnp.int32)
     partner_odd = jnp.asarray(odd_np, jnp.int32)
     r_idx = jnp.arange(num_replicas, dtype=jnp.int32)
-
-    choice = resolve_kernel_choice(kernel, integrator=integrator)
-    fused_generic = fused_packed = None
-    if choice == "fused":
-        from .ops.packed import PackedUnsupported
-        from .ops.pallas_kernels import (
-            _use_interpret, make_fused_hmc_packed, make_fused_hmc_transition)
-        if not _use_interpret():
-            fused_generic = make_fused_hmc_transition(
-                vg, num_steps=num_steps)
-            if 128 % num_dims == 0:
-                try:
-                    fused_packed = make_fused_hmc_packed(
-                        potential_fn, num_dims=num_dims,
-                        num_steps=num_steps)
-                except PackedUnsupported:
-                    fused_packed = None
-            if fused_packed is None:
-                from .hmc import fused_kernel_lowers
-                if not fused_kernel_lowers(potential_fn, num_dims):
-                    fused_generic = None  # XLA replica sweeps instead
-    kernel_used = "fused" if fused_generic is not None else "xla"
 
     def replica_step(key, q, u, g, beta_e, step_size):
         """One HMC transition at effective inverse temperature ``beta_e =
@@ -170,36 +143,9 @@ def build_pt_transition(
 
     v_step = jax.vmap(replica_step, in_axes=(0, 0, 0, 0, 0, 0))
 
-    def fused_replica_step(seed, q, u, g, beta_e, step_size):
-        """Same statistics on the fused pallas engine: ``beta_e`` rides
-        the kernel's SMEM ``beta`` scalar and the Maxwell-Boltzmann scale
-        ``sqrt(m)/sqrt(beta_e)`` its ``p_std`` row — one compiled kernel
-        for every rung of the ladder."""
-        p_std = thermal_momentum_std(mass, 1.0, NATURAL) / jnp.sqrt(beta_e)
-        trans = fused_generic
-        if (fused_packed is not None
-                and q.shape[0] % (128 // num_dims) == 0
-                and mass.ndim <= 1):
-            trans = fused_packed
-        q1, u1, g1, acc_prob, _, _ = trans(
-            seed, q, u, g, step_size=step_size, p_std=p_std,
-            inv_mass=1.0 / mass, beta=beta_e)
-        return q1, u1, g1, jnp.mean(acc_prob)
-
     def hmc_phase(key, q, u, g, step_sizes):
-        if fused_generic is None:
-            return v_step(jax.random.split(key, num_replicas), q, u, g,
-                          beta_eff, step_sizes)
-        seeds = jax.random.randint(
-            key, (num_replicas,), minval=-(2**31), maxval=2**31 - 1,
-            dtype=jnp.int32)
-        outs = [fused_replica_step(seeds[r], q[r], u[r], g[r],
-                                   beta_eff[r], step_sizes[r])
-                for r in range(num_replicas)]
-        return (jnp.stack([o[0] for o in outs]),
-                jnp.stack([o[1] for o in outs]),
-                jnp.stack([o[2] for o in outs]),
-                jnp.stack([o[3] for o in outs]))
+        return v_step(jax.random.split(key, num_replicas), q, u, g,
+                      beta_eff, step_sizes)
 
     def swap_phase(key, q, u, g, parity):
         num_walkers = q.shape[1]
@@ -225,7 +171,7 @@ def build_pt_transition(
         q, u, g, swaps = swap_phase(k_swap, q, u, g, i % 2)
         return q, u, g, acc, swaps
 
-    return transition, kernel_used, vg
+    return transition, vg
 
 
 @dataclasses.dataclass
@@ -240,7 +186,7 @@ class PTResult:
     betas: Array                   # [R] the ladder used
     mean: Optional[Array] = None   # [D] cold-replica streaming moments
     var: Optional[Array] = None
-    kernel_used: str = "xla"       # HMC engine ("fused" | "xla")
+    kernel_used: str = "xla"       # HMC engine: the XLA scan integrator
 
 
 def run_parallel_tempering(
@@ -274,7 +220,7 @@ def run_parallel_tempering(
     Per-replica step sizes adapt by dual averaging during warmup (hot
     replicas want larger steps); swaps run during warmup too.
 
-    ``kernel``: "auto"|"fused"|"xla" — see :func:`build_pt_transition`.
+    ``kernel``: "auto" or "xla" — see :func:`build_pt_transition`.
     """
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
@@ -292,8 +238,8 @@ def run_parallel_tempering(
     _, num_walkers, num_dims = init_q.shape
     dtype = init_q.dtype
 
-    transition, kernel_used, vg = build_pt_transition(
-        potential_fn, betas=betas, num_dims=num_dims, num_steps=num_steps,
+    transition, vg = build_pt_transition(
+        potential_fn, betas=betas, num_steps=num_steps,
         integrator=integrator, mass=mass, temperature=temperature,
         constants=constants, kernel=kernel, dtype=dtype)
 
@@ -372,5 +318,4 @@ def run_parallel_tempering(
         betas=betas,
         mean=post_mean,
         var=post_var,
-        kernel_used=kernel_used,
     )

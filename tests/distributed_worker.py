@@ -95,14 +95,13 @@ def main() -> None:
 
 
 def _fused_ckpt(info, mesh, sharding, mode, ckpt_dir):
-    """Full multi-host recovery story in one flow (VERDICT.md round-4
-    item 8): the fused-kernel shard_map composition (CPU degrades to the
-    XLA kernel inside the identical shard_map shape) runs 10 transitions
-    across 2 processes, checkpointing the sharded sampler state at
-    transition 5 through orbax; the ``resume`` phase is a FRESH 2-process
-    cluster that restores the checkpoint and replays transitions 5..9.
-    The parent asserts the resumed moments equal the uninterrupted run's
-    bit-for-bit."""
+    """Full multi-host recovery story in one flow: the shard_map
+    composition of the XLA kernel runs 10 transitions across 2
+    processes, checkpointing the sharded sampler state at transition 5
+    (each process writes its own shards); the ``resume`` phase is a FRESH
+    2-process cluster that restores the checkpoint and replays
+    transitions 5..9. The parent asserts the resumed moments equal the
+    uninterrupted run's bit-for-bit."""
     import json
 
     import numpy as np
@@ -118,9 +117,9 @@ def _fused_ckpt(info, mesh, sharding, mode, ckpt_dir):
 
     d = 4
     w = 64
-    fused = pbbi.build_fused_hmc_kernel(pot.make_standard_normal(d),
-                                        num_steps=4)
-    kernel = shard_map_kernel(fused, mesh)
+    kernel = shard_map_kernel(
+        pbbi.build_hmc_kernel(pot.make_standard_normal(d), num_steps=4),
+        mesh)
     qnp = np.asarray(
         jax.random.normal(jax.random.key(11), (w, d), jnp.float32))
     q0 = jax.make_array_from_callback((w, d), sharding,
@@ -136,8 +135,7 @@ def _fused_ckpt(info, mesh, sharding, mode, ckpt_dir):
     for i in range(start, 10):
         state, _ = kernel.step(jax.random.key(100 + i), state, eps)
         if i == 4 and mode == "fused_ckpt_run":
-            mgr.save(5, state, force=True)
-    mgr.close()
+            mgr.save(5, state)
 
     q = state.ensemble.q
     print(json.dumps({

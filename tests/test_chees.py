@@ -93,13 +93,15 @@ def test_chees_kernel_option_cpu_fallback():
     q0 = jax.random.normal(jax.random.key(0), (512, 2))
     kw = dict(num_warmup=100, num_samples=100, init_step_size=0.3,
               collect="moments")
-    res_f = run_chees_hmc(jax.random.key(1), target, q0, kernel="fused",
+    res_a = run_chees_hmc(jax.random.key(1), target, q0, kernel="auto",
                           **kw)
     res_x = run_chees_hmc(jax.random.key(1), target, q0, kernel="xla",
                           **kw)
-    assert res_f.kernel_used == "xla"  # no TPU here
-    np.testing.assert_allclose(np.asarray(res_f.mean),
+    assert res_a.kernel_used == "xla"
+    np.testing.assert_allclose(np.asarray(res_a.mean),
                                np.asarray(res_x.mean), rtol=1e-6)
+    with pytest.raises(ValueError, match="'auto' or 'xla'"):
+        run_chees_hmc(jax.random.key(1), target, q0, kernel="fused", **kw)
 
 
 def test_chees_mass_adaptation_scales_step():

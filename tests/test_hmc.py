@@ -153,20 +153,22 @@ def test_integrator_choices_sample_correctly(integrator):
 
 
 def test_run_hmc_kernel_option_cpu_fallback():
-    """kernel="fused"/"auto" degrade gracefully to the XLA engine off-TPU
-    (resolve_kernel_choice), with identical results to an explicit
-    kernel="xla" run at equal seed (same engine, same streams)."""
+    """kernel="auto" runs the XLA engine (identical results to an
+    explicit kernel="xla" run at equal seed); kernel="fused" off the GPU
+    raises instead of silently running another engine."""
     fn = pot.make_standard_normal(3)
     q0 = jax.random.normal(jax.random.key(0), (256, 3))
     kw = dict(num_warmup=50, num_samples=50, num_steps=8,
               collect="moments")
-    res_f = pbbi.run_hmc(jax.random.key(1), fn, q0, kernel="fused", **kw)
+    res_a = pbbi.run_hmc(jax.random.key(1), fn, q0, kernel="auto", **kw)
     res_x = pbbi.run_hmc(jax.random.key(1), fn, q0, kernel="xla", **kw)
-    assert res_f.kernel_used == "xla"
-    assert res_f.kernel_variant == "xla"
-    np.testing.assert_allclose(np.asarray(res_f.mean),
+    assert res_a.kernel_used == "xla"
+    assert not hasattr(res_a, "kernel_variant")
+    np.testing.assert_allclose(np.asarray(res_a.mean),
                                np.asarray(res_x.mean), rtol=1e-6)
-    assert res_f.sampling_seconds > 0.0
+    assert res_a.sampling_seconds > 0.0
+    with pytest.raises(ValueError, match="no fused engine on this backend"):
+        pbbi.run_hmc(jax.random.key(1), fn, q0, kernel="fused", **kw)
 
 
 def test_run_hmc_rejects_bad_kernel():
@@ -180,15 +182,21 @@ def test_run_hmc_rejects_bad_kernel():
 def test_resolve_kernel_choice():
     from physicsbasedbayesianinference_tpu.hmc import resolve_kernel_choice
     assert resolve_kernel_choice("xla") == "xla"
-    on_tpu = jax.default_backend() == "tpu"
-    assert resolve_kernel_choice("auto") == ("fused" if on_tpu else "xla")
-    # non-leapfrog integrators never take the fused path
+    # "auto" is the XLA engine on every backend
+    assert resolve_kernel_choice("auto") == "xla"
     assert resolve_kernel_choice("auto", integrator="yoshida4") == "xla"
+    # the fused engine runs leapfrog only, and only on a GPU backend
+    with pytest.raises(ValueError, match="leapfrog"):
+        resolve_kernel_choice("fused", integrator="yoshida4")
+    with pytest.raises(ValueError, match="no fused engine"):
+        resolve_kernel_choice("fused")
+    with pytest.raises(ValueError, match="auto, xla, fused"):
+        resolve_kernel_choice("packed")
 
 
 def test_dense_metric_whitens_correlated_target():
     """run_hmc(metric="dense") — the Stan dense_e analog, estimated from
-    the cross-walker covariance (one MXU matmul per transition): on a
+    the cross-walker covariance (one matmul per transition): on a
     strongly correlated target the adapted dense metric must (a) recover
     the target covariance, (b) allow a much larger step than the diag
     metric at equal acceptance target, and (c) match the posterior

@@ -316,8 +316,8 @@ def test_logistic_regression_recovers_weights():
 
 
 def test_uniform_array_bounds():
-    """Array-valued Uniform bounds per plate site (VERDICT.md round-1 weak
-    item 9): each site gets its own interval bijection elementwise."""
+    """Array-valued Uniform bounds per plate site: each site gets its own
+    interval bijection elementwise."""
     lo = jnp.asarray([0.0, 1.0, -2.0])
     hi = jnp.asarray([1.0, 3.0, 2.0])
     d = dist.Uniform(lo, hi)
@@ -365,8 +365,7 @@ def test_uniform_array_bounds_in_model():
 def test_nested_plate_dims_numpyro_semantics():
     """Nested plates allocate distinct batch dims NumPyro-style: the
     outermost plate takes the rightmost free dim (-1), inner plates move
-    left, so samples under plate(a=3) > plate(b=5) have shape (5, 3)
-    (VERDICT.md round-1 weak item 9, nested-broadcast semantics)."""
+    left, so samples under plate(a=3) > plate(b=5) have shape (5, 3)."""
     from physicsbasedbayesianinference_tpu.models.core import (
         plate, sample, seed, trace)
 
@@ -454,7 +453,7 @@ def test_plate_subsample_seed_handler_supplies_key():
     assert tr.sites["x"].scale == pytest.approx(100.0 / 8.0)
 
 
-# -- automatic non-centering (reparam, VERDICT.md round-4 item 3) -----------
+# -- automatic non-centering (reparam) ---------------------------------------
 
 
 def test_reparam_auto_matches_hand_noncentered_potential():
@@ -561,7 +560,7 @@ def test_reparam_funnel_model_decenters():
     the latent space (the x sites decenter against exp(v/2)): the
     potential at any q equals the iid-normal potential up to the
     constant, and sampling is trivial at a large fixed step — the
-    documented fix for funnel-type geometry (VERDICT.md round-4 item 3)."""
+    documented fix for funnel-type geometry."""
     from physicsbasedbayesianinference_tpu.hmc import run_hmc
     from physicsbasedbayesianinference_tpu.models.examples import funnel
     from physicsbasedbayesianinference_tpu.models.potential import (

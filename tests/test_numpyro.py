@@ -1,4 +1,4 @@
-"""NumPyro interop tests (VERDICT.md round-1 missing item 1).
+"""NumPyro interop tests.
 
 Two layers:
 

@@ -13,7 +13,7 @@ import pytest
 @pytest.fixture(autouse=True)
 def _x64():
     """Physics-mode oracles need float64 (the reference runs numpy f64
-    throughout); restore f32 afterwards so sampler tests stay TPU-dtyped."""
+    throughout); restore f32 afterwards so sampler tests stay float32."""
     old = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", True)
     yield

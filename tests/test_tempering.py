@@ -133,9 +133,9 @@ def test_pt_replicas_sharded_over_mesh():
 
 
 def test_pt_kernel_option_cpu_fallback():
-    """kernel='fused' degrades gracefully to the XLA path off-TPU and
-    the PTResult reports the engine that actually ran (mirrors
-    run_hmc/run_chees_hmc's contract)."""
+    """Parallel tempering runs the XLA engine: kernel='auto' reports it,
+    and kernel='fused' raises naming the supported values."""
+    import pytest
     import jax
     import jax.numpy as jnp
     from physicsbasedbayesianinference_tpu.ops.potentials import (
@@ -147,7 +147,11 @@ def test_pt_kernel_option_cpu_fallback():
         jax.random.key(0), make_standard_normal(4),
         jax.random.normal(jax.random.key(1), (128, 4)),
         num_replicas=3, num_warmup=10, num_samples=10, collect="none",
-        kernel="fused")
-    expected = "fused" if jax.default_backend() == "tpu" else "xla"
-    assert r.kernel_used == expected
+        kernel="auto")
+    assert r.kernel_used == "xla"
     assert r.q.shape == (3, 128, 4)
+    with pytest.raises(ValueError, match="'auto' or 'xla'"):
+        run_parallel_tempering(
+            jax.random.key(0), make_standard_normal(4),
+            jnp.zeros((128, 4)), num_replicas=3, num_warmup=1,
+            num_samples=1, kernel="fused")
